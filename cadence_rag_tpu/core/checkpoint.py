@@ -183,7 +183,7 @@ def _save_index_multihost(path: str, index, timeout_s: float = 600.0) -> Dict:
     started/has_emb — host mirrors exist only on the leader), lexical
     stats and, LAST, the atomic meta flip. The op-log 'checkpoint_shards'
     mirror inside the corpus lock pins the save to a consistent point in
-    the op stream. Closes VERDICT r2 missing #2 (multi-host SAVE)."""
+    the op stream (multi-host SAVE)."""
     import os
     import time as _time
 
@@ -455,7 +455,7 @@ def _read_shard(
 def _shard_stream(src: Path, prefix: str, n_shards: int, target_dtype):
     """Yield shards in row order, prefetching the next file on a reader
     thread so disk I/O overlaps the (async) H2D transfer of the previous
-    shard (TODO_NEXT round-3 item 9: restore streaming). If the consumer
+    shard (restore streaming). If the consumer
     abandons the generator mid-restore (device error, shard-count
     mismatch), close() signals the reader to stop — without it the
     reader would block forever on q.put and pin up to two decoded

@@ -1,8 +1,8 @@
 """Cold tier: host-RAM document rows beyond the device-row cap.
 
-One chip's HBM bounds the hot corpus (~2M chunks at int8 + lex_dim 4096
-on a 16 GB v5e — NOTES_DEV.md). The TPU-idiomatic scale-out is the data
-mesh (`MESH_SHAPE`, SURVEY.md §2.4), but a single-chip deployment can
+One device's memory bounds the hot corpus (~6.2 KB per row at bf16 +
+lex_dim 4096). The usual scale-out is the data mesh (`MESH_SHAPE`,
+SURVEY.md §2.4), but a single-device deployment can
 still hold a larger corpus by spilling rows past
 ``INDEX_MAX_DEVICE_ROWS`` into host memory: the cold rows keep the exact
 hot-tier layout (encoded embeddings, int8 lexical signatures, tech

@@ -1,15 +1,15 @@
 """Lexical vocab head: learn collision-free buckets for frequent features.
 
 pg_search's BM25 index keeps exact per-term postings — collision-free by
-construction (reference: alembic/versions/0005:17-37). The TPU signature
+construction (reference: alembic/versions/0005:17-37). The device signature
 lane trades that for fixed-width hashed buckets (ops/hashing.py), and the
 fidelity cost is dominated by collisions BETWEEN frequent features, which
 carry most of the score mass. This module learns the corpus's top-T
-document-frequent feature hashes and gives them dedicated buckets
-``[0, T)`` (ops/hashing.apply_vocab); the hashed tail keeps covering the
-long tail of rare features. Measured on the fidelity harness
-(evals/lexical_fidelity.py): top-10 overlap vs collision-free feature
-BM25 at D=4096 goes 0.87 -> ~0.96 with T=2048.
+document-frequent feature hashes and gives them dedicated buckets ``[0, T)``
+(ops/hashing.apply_vocab); the hashed tail keeps covering the long tail of
+rare features. Measured on the fidelity harness (evals/lexical_fidelity.py):
+top-10 overlap vs collision-free feature BM25 at D=4096 goes 0.87 -> ~0.96
+with T=2048.
 
 Operational contract (scripts/build_lex_vocab.py):
 - the vocab is persisted per store (``lex_vocab`` table, highest version

@@ -4,17 +4,20 @@ Validates that the corpus-sharded retrieval lanes produce oracle-correct
 results when the mesh SPANS PROCESS BOUNDARIES — i.e. that the
 `DIST_COORDINATOR` path (serve/api.py startup) actually works, with
 collectives crossing processes, not just a single-process multi-device
-mesh. On machines without multiple TPU hosts it runs on the CPU backend
-(Gloo transport), which exercises the same jax.distributed + GSPMD
-machinery.
+mesh. By default it runs on the CPU backend (Gloo transport), which
+exercises the same jax.distributed + GSPMD machinery; ``--real-backend``
+runs on the default backend instead, each process on its own
+``--devices-per-process`` cards of one host (the launcher sets each
+worker's CUDA_VISIBLE_DEVICES, e.g. 4 processes x 1 GPU, collectives over
+NCCL).
 
 Run as the coordinator-launcher (spawns the workers):
     python -m cadence_rag_tpu.evals.dist_check [--processes 2]
-        [--devices-per-process 4] [--port 19911]
+        [--devices-per-process 4] [--port 19911] [--real-backend]
 
 or as one worker of an externally-launched gang (e.g. on real hosts):
     python -m cadence_rag_tpu.evals.dist_check --worker --process-id K \
-        --processes N --coordinator host:port
+        --processes N --coordinator host:port --real-backend
 """
 
 from __future__ import annotations
@@ -123,30 +126,52 @@ def run_worker(
     print(
         f"proc{process_id}: sharded lanes "
         f"{'MATCH' if ok else 'FAIL'} across {n_processes} processes "
-        f"({n_devices} global devices)", flush=True,
+        f"({n_devices} global devices, {jax.default_backend()} "
+        f"{jax.local_devices()[0].device_kind})", flush=True,
     )
     return 0 if ok else 1
 
 
-def launch(n_processes: int, devices_per_process: int, port: int) -> int:
+def launch(n_processes: int, devices_per_process: int, port: int,
+           real_backend: bool = False) -> int:
     coordinator = f"127.0.0.1:{port}"
     procs = []
     for pid in range(n_processes):
+        # unbuffered, with faulthandler: a worker that dies in native
+        # code still leaves its last output and a Python stack
+        cmd = [sys.executable, "-u", "-X", "faulthandler",
+               "-m", "cadence_rag_tpu.evals.dist_check",
+               "--worker", "--process-id", str(pid),
+               "--processes", str(n_processes),
+               "--coordinator", coordinator,
+               "--devices-per-process", str(devices_per_process)]
+        env = dict(os.environ)
+        if real_backend:
+            cmd.append("--real-backend")
+            # each worker opens only its own cards
+            first = pid * devices_per_process
+            env["CUDA_VISIBLE_DEVICES"] = ",".join(
+                str(i) for i in range(first, first + devices_per_process))
+            # XLA splits GEMM autotuning across a gang's processes by
+            # default; with 4 processes x 1 H100 the workers left without
+            # a share died by SIGSEGV compiling the first dot
+            env["XLA_FLAGS"] = (env.get("XLA_FLAGS", "") +
+                                " --xla_gpu_shard_autotuning=false").strip()
         procs.append(subprocess.Popen(
-            [sys.executable, "-m", "cadence_rag_tpu.evals.dist_check",
-             "--worker", "--process-id", str(pid),
-             "--processes", str(n_processes),
-             "--coordinator", coordinator,
-             "--devices-per-process", str(devices_per_process)],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+            env=env,
         ))
     rc = 0
     for pid, proc in enumerate(procs):
         out, _ = proc.communicate(timeout=600)
         tail = [ln for ln in out.splitlines() if "sharded lanes" in ln
                 or "MISMATCH" in ln]
-        print("\n".join(tail) or out[-500:], flush=True)
-        rc |= proc.returncode
+        if proc.returncode != 0:
+            print(f"proc{pid}: exit status {proc.returncode}; output "
+                  f"tail:\n{out[-8000:]}", flush=True)
+        else:
+            print("\n".join(tail) or out[-500:], flush=True)
+        rc = rc or (1 if proc.returncode != 0 else 0)
     print("DIST CHECK", "PASSED" if rc == 0 else "FAILED", flush=True)
     return rc
 
@@ -161,15 +186,17 @@ def main() -> None:
     parser.add_argument("--worker", action="store_true")
     parser.add_argument("--process-id", type=int, default=0)
     parser.add_argument("--coordinator", default="")
-    parser.add_argument("--no-force-cpu", action="store_true",
-                        help="use the real backend (multi-host TPU gangs)")
+    parser.add_argument("--real-backend", action="store_true",
+                        help="use the default backend (GPUs), each process "
+                        "on its own --devices-per-process local devices")
     args = parser.parse_args()
     if args.worker:
         sys.exit(run_worker(
             args.process_id, args.processes, args.coordinator,
-            args.devices_per_process, force_cpu=not args.no_force_cpu,
+            args.devices_per_process, force_cpu=not args.real_backend,
         ))
-    sys.exit(launch(args.processes, args.devices_per_process, args.port))
+    sys.exit(launch(args.processes, args.devices_per_process, args.port,
+                    real_backend=args.real_backend))
 
 
 if __name__ == "__main__":

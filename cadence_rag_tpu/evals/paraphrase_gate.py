@@ -1,8 +1,7 @@
 """Paraphrase gate: proves the TRAINED embedder beats the hash stub.
 
-The round-1 verdict's gap: the neural embedder existed but "semantic
-retrieval quality has never been evaluated with a real model". This gate
-closes it end-to-end:
+The neural embedder is only worth its cost if semantic retrieval quality
+beats the hash stub with a real model. This gate checks that end-to-end:
 
 1. build a disposable store + index with the synthetic paraphrase corpus
    (evals/train_corpus.py): transcripts in spoken register, summaries in

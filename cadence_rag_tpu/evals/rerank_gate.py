@@ -1,7 +1,7 @@
 """Rerank gate: a cross-encoder fine-tuned on RELEVANCE labels must beat
 the lexical rescorer at reordering paraphrase candidates.
 
-Round-2 state (NOTES_DEV.md): distilled from the lexical teacher, the
+Distilled from the lexical teacher, the
 cross-encoder could only MATCH the teacher (~0.7 pairwise agreement), so
 production ``rerank_provider=neural`` ships as a banded hybrid. To EXCEED
 the teacher it needs labels the teacher cannot produce — exactly what the
@@ -132,7 +132,7 @@ def _mrr_e2e(provider: str, queries, gold_sets) -> float:
     with RERANK_ENABLED=1 over the live paraphrase corpus — the full
     /retrieve pipeline (featurize, plan, fused device program, RRF,
     rerank of the fused top-k) rather than a curated candidate set
-    (VERDICT r3 weak #3 done-check). ``provider="none"`` = rerank off."""
+    ``provider="none"`` = rerank off."""
     from ..engine.retrieve import retrieve_evidence_batch
     from ..schemas import RetrieveRequest
 
@@ -239,7 +239,7 @@ def run_gate(
                 raise SystemExit(f"too few triples ({len(triples)})")
             params_path = str(workdir / "reranker_tuned.npz")
             if two_register:
-                # Two-register recipe (VERDICT r4 weak #3): paraphrase
+                # Two-register recipe: paraphrase
                 # relevance triples + lexical-teacher triples from the
                 # SAME store, each with the frozen lexical prior attached;
                 # the model's score is prior + trained residual, so the
@@ -337,8 +337,8 @@ def run_gate(
 
         # ---- fixture-register phase: the lexically-saturated gate must
         # not regress with neural_raw reranking the fused top-k (the
-        # round-4 paraphrase-only model scored recall@20 0.597 there —
-        # VERDICT r4 weak #3). NOTE: real_gate builds its own disposable
+        # paraphrase-only model scored recall@20 0.597 there). NOTE:
+        # real_gate builds its own disposable
         # store, so this runs after every paraphrase metric is computed.
         fixture = None
         if fixture_phase:

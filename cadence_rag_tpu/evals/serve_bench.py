@@ -43,7 +43,7 @@ def _populate(n_chunks: int, n_calls: int = N_CALLS) -> None:
 def _start_writer(stop_event, inserted_counter, rate_rows_s: float = 0.0):
     """Background ingest load: repeated slab inserts (each one donates the
     corpus buffers) while queries run — measures the write path's impact
-    on query tail latency (TODO_NEXT round-3 item 7). ``rate_rows_s``
+    on query tail latency. ``rate_rows_s``
     throttles the writer (0 = unthrottled): after the host batching work
     the unthrottled writer sustains >2k rows/s and interleaves an insert
     dispatch per query dispatch — a fixed rate is the apples-to-apples

@@ -169,9 +169,8 @@ def query_tech_hashes(
 ) -> np.ndarray:
     """Query-side SLOT-ADDRESSED structure, (S*C,) int32 (see
     ops/hashing.tech_query_structure). The compare costs C slot-aligned
-    passes — ~7.1 ms at C=2 vs 16.7 ms for the old (B,N,Q,S) broadcast
-    at batch 128 x 1M docs — and the query token budget is ~S*C (32 at
-    defaults) instead of a silent cap of 8 (VERDICT r2 weak #4); any
+    passes instead of one (B,N,Q,S) broadcast, and the query token budget
+    is ~S*C (32 at defaults) instead of a silent cap of 8; any
     overflow is counted and surfaced in debug payloads."""
     structure, _ = query_tech_structure(tokens)
     return structure

@@ -12,10 +12,10 @@ Behavioral parity with the reference pipeline (reference: app/ingest_fs.py):
 - retry with exponential backoff intervals ``base * 2^i``;
 - worker: ingest -> optional auto-embed (fail-open/closed) -> move bundle.
 
-TPU-native difference: Redis/RQ is replaced by a durable SQLite queue table
-with claim semantics (at-least-once, visibility via claimed_at) — the job
-table remains the source of truth, exactly the property the reference
-relies on (SURVEY.md §2.2).
+Difference from the reference: Redis/RQ is replaced by a durable SQLite
+queue table with claim semantics (at-least-once, visibility via claimed_at)
+— the job table remains the source of truth, exactly the property the
+reference relies on (SURVEY.md §2.2).
 """
 
 from __future__ import annotations

@@ -11,10 +11,10 @@ app/ingest.py:366-755):
 - analysis artifacts: paragraph/bullet itemized artifact_chunks;
 - every ingest records an ingestion_runs provenance row.
 
-TPU-native difference: committed rows are featurized (lexical signature,
-tech-token hashes) and appended to the device index immediately — SQLite is
-durability, the device arrays are the search index. Store commit happens
-first; a crash between commit and device insert is repaired by
+Difference from the reference: committed rows are featurized (lexical
+signature, tech-token hashes) and appended to the device index immediately —
+SQLite is durability, the device arrays are the search index. Store commit
+happens first; a crash between commit and device insert is repaired by
 rebuild_index_from_store() at startup.
 """
 
@@ -464,7 +464,7 @@ def ingest_analysis(
 def delete_call(call_id: str) -> dict:
     """Delete a call and everything derived from it — durable rows AND the
     device index (tombstones now, compaction when they accumulate). The
-    reference has no delete path (VERDICT round-1 item 10); a production
+    reference has no delete path; a production
     index needs one. Vocab-gated: a delete racing an online vocab rebuild
     would shed OLD-layout df mass from the NEW df table."""
     store = get_store()

@@ -1,6 +1,6 @@
 """Byte-level BPE tokenizer loader (stdlib-only) for real Qwen3 vocabs.
 
-VERDICT r4 missing #1: models/qwen3.py hash-tokenizes, so a real
+models/qwen3.py hash-tokenizes, so a real
 Qwen3-Embedding checkpoint (the documented npz path) was not actually a
 drop-in — nothing could load the real BPE vocab. This module loads the
 HuggingFace ``tokenizer.json`` (or a ``vocab.json`` + ``merges.txt``

@@ -2,8 +2,8 @@
 //
 // The reference's ANN engine is pgvector's HNSW (C; m=16, ef_construction=64
 // build, ef_search query — reference: alembic 0001:98-102,
-// app/retrieve.py:290-300). On TPU the production ANN is approx_max_k / IVF
-// (see ops/ivf.py and NOTES_DEV.md for the bandwidth argument); this module
+// app/retrieve.py:290-300). On the device the production ANN is the scan /
+// IVF (see ops/ivf.py for the bandwidth argument); this module
 // is the literal HNSW counterpart: a host-side graph BUILDER (the native
 // "graph-builder" role) and search path used for CPU-only deployments and
 // for recall cross-checks, exposed to Python via ctypes (native/hnsw.py).

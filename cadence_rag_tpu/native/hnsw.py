@@ -1,7 +1,7 @@
 """ctypes binding for the native HNSW graph index (hnsw.cpp).
 
 Literal counterpart of pgvector's HNSW (build m/ef_construction, query
-ef_search). The TPU serving path prefers approx_max_k / IVF (NOTES_DEV.md);
+ef_search). The device serving path prefers the scan / IVF (ops/ivf.py);
 this backend serves CPU-only deployments and recall cross-checks.
 """
 

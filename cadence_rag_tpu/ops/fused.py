@@ -34,12 +34,12 @@ def _lanes_one_corpus(
 ) -> Dict[str, LaneResult]:
     mask = filter_mask(call_idx, started_sec, allowed_calls, date_min, date_max)
     out: Dict[str, LaneResult] = {}
-    # the ef_search->recall_target knob governs every approx lane, not
-    # just dense (ANN_RECALL_TARGET contract in docs/CONFIG.md)
+    # the ef_search->recall_target knob governs the dense and lexical
+    # approx lanes (ANN_RECALL_TARGET contract in docs/CONFIG.md); the
+    # tech lane's order is a contract, so it takes the exact top-k
     out["lex"] = lexical_topk(q_lex, lex_w, mask, k_lex,
                               recall_target=recall_target)
-    out["tech"] = tech_topk(tech, started_sec, q_tech, mask, k_tech,
-                            recall_target=recall_target)
+    out["tech"] = tech_topk(tech, started_sec, q_tech, mask, k_tech)
     if dense_enabled and dense_mode != "none":
         # rows without embeddings are excluded from the dense lane only
         # (reference: `embedding IS NOT NULL`, app/retrieve.py:347)
@@ -118,8 +118,7 @@ def dual_corpus_retrieve(
 ) -> Tuple[Dict[str, LaneResult], Dict[str, LaneResult]]:
     """Both corpora's six lanes in ONE device program — one dispatch per
     /retrieve instead of the reference's five SQL round-trips (and instead
-    of two separate device calls; dispatch latency through the host->TPU
-    link is the dominant serving cost at small batch)."""
+    of two separate device calls, each paying its own dispatch)."""
     chunks_out = _lanes_one_corpus(
         *chunk_arrays, q_emb, chunk_q_lex, q_tech,
         allowed_calls, date_min, date_max,

@@ -286,7 +286,7 @@ def rrf_fuse_lanes_device(
     lane_order: Sequence[str],
     k: int = DEFAULT_RRF_K,
 ) -> Tuple[jax.Array, jax.Array, jax.Array, jax.Array]:
-    """RRF merge INSIDE the fused device program (VERDICT r3 weak #2).
+    """RRF merge INSIDE the fused device program.
 
     outs: {lane: (vals (B, k_lane) sorted desc w/ -inf sentinels,
     positions (B, k_lane))} in ``lane_order``. Returns
@@ -303,8 +303,7 @@ def rrf_fuse_lanes_device(
     (DEVICE_RRF_ENABLED=0) and debug-mode queries always use it.
 
     Cost: an (B, K, K) equality plane + einsum, K <= ~170 — microseconds
-    next to the (B, N) lane scans; saves the host's postprocess+merge
-    (~5 ms per 128-batch on the 1-core serving host)."""
+    next to the (B, N) lane scans; saves the host's postprocess+merge."""
     vals_parts, pos_parts = [], []
     contrib_np, bits_np = [], []
     for i, name in enumerate(lane_order):

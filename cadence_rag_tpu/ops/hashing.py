@@ -3,7 +3,7 @@
 The reference's lexical lane is pg_search BM25 over an ngram(3,3) tokenizer
 (reference: alembic/versions/0005:17-37) and its exact-token lane is a GIN
 array-overlap over extracted tech tokens (reference: app/retrieve.py:183-242).
-On TPU both become fixed-width hashed representations:
+On the device both become fixed-width hashed representations:
 
 - lexical: signed feature hashing of word tokens + char trigrams into
   ``D`` buckets (signed hashing decorrelates collisions, Weinberger et al.),
@@ -255,9 +255,8 @@ def tech_token_hashes(tokens: Sequence[str], slots: int) -> np.ndarray:
     (0 = empty sentinel): token h lives at slot h%S, or (h>>8)%S if
     taken (2-choice; both taken -> dropped, rare at <=8 tokens over 16
     slots). Slot addressing is what lets the device compare check TWO
-    positions per query token instead of all S — the tech lane was the
-    fused program's dominant cost at B*N*Q*S ops (lane_probe: 16.7 ms
-    vs 7.1 slot-addressed, batch 128 x 1M rows).
+    positions per query token instead of all S (B*N*S compares instead
+    of B*N*Q*S).
 
     Matching is case-insensitive, like the reference's normalization of
     extracted tokens (reference: app/ingest.py:150-160).
@@ -316,7 +315,7 @@ def tech_query_structure(
     blocks never match, so narrower structures zero-pad into wider
     programs). Returns (structure, dropped); any residual drop is
     surfaced in debug payloads — the old fixed-Q layout silently
-    truncated at 8 tokens (VERDICT r2 weak #4)."""
+    truncated at 8 tokens)."""
     if max_capacity <= 0:
         max_capacity = capacity * 2
     # Hash/dedupe once (placement retries only re-run the slot loop).

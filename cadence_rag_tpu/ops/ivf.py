@@ -3,11 +3,11 @@
 The large-corpus ANN path. pgvector's HNSW is a pointer-chasing graph —
 hostile to a vector machine: each hop gathers ef*M full embedding rows, so
 at ef_search=80 a 1M-doc traversal moves as many bytes as the brute-force
-matmul that already runs at HBM bandwidth (NOTES_DEV.md). The TPU-shaped
+matmul, which streams the rows at memory bandwidth. The dense-hardware
 alternative is IVF (Faiss's workhorse; PAPERS.md "The Faiss library"):
 
 - build: spherical k-means ON DEVICE — assignment is a (N,dim)x(dim,C)
-  MXU matmul + argmax, update is a scatter-add; O(iters) passes;
+  matmul + argmax, update is a scatter-add; O(iters) passes;
 - query: score C centroids (tiny matmul), probe the top-``nprobe``
   clusters, gather only those buckets' rows, exact-score the gathered
   subset. Per query it reads nprobe*bucket_cap rows instead of N — the win

@@ -1,4 +1,4 @@
-"""Lexical BM25-style lane as an int8 MXU matmul.
+"""Lexical BM25-style lane as a matmul over int8 signatures.
 
 Replaces pg_search's `text @@@ :query ORDER BY pdb.score(...)` (reference:
 app/retrieve.py:123-180). Exact score parity with tantivy's BM25 is
@@ -43,9 +43,7 @@ def lexical_topk(
     scores = lexical_scores(q_lex, lex_w)
     matched = scores > LEX_MATCH_THRESHOLD
     masked = jnp.where(mask & matched, scores, NEG_INF)
-    # approx_max_k instead of exact top_k: measured on-chip at 1M docs the
-    # exact TopK adds ~11 ms per lane while PartialReduce is free (the
-    # matmul already bounds the pass); the lexical contract is ranking
-    # QUALITY (eval-gated), not bit-exact order, and recall 0.95 at the
-    # top-50 boundary is noise relative to hash-collision variance.
+    # approx_max_k: the lexical contract is ranking QUALITY (eval-gated),
+    # not bit-exact order, so the lane may take an approximate top-k
+    # where the backend has one (on CPU and GPU it is an exact sort).
     return approx_topk_sorted(masked, k, recall_target=recall_target)

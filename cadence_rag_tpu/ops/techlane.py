@@ -5,9 +5,12 @@ call_started_at DESC, id ASC` (reference: app/retrieve.py:183-242).
 
 Each document carries S int32 token-hash slots (0 = empty). A query carries
 Q hashed tokens. Match = any slot equals any query hash. Ordering is by
-recency: ``lax.top_k`` over int32 call-start seconds; top_k's
+recency: exact ``lax.top_k`` over call-start seconds, whose documented
 lowest-index-wins tie-break reproduces the reference's secondary
-``id ASC`` order because documents are appended in id order.
+``id ASC`` order because documents are appended in id order. (An
+approximate top-k would not do: its fallback lowering is a sort that
+need not keep equal keys in position order, and calls share one
+started_sec across all their chunks, so ties are the common case.)
 """
 
 from __future__ import annotations
@@ -31,15 +34,9 @@ def tech_match(doc_tokens: jax.Array, q_tokens: jax.Array) -> jax.Array:
     ops/hashing.tech_token_hashes); the query structure holds, per slot,
     up to C hashes that could live there (ops/hashing.
     tech_query_structure). The compare unrolls into C*S per-slot-COLUMN
-    (B, N) passes: every intermediate keeps the 1M-row N axis in the
-    128-lane dim, where the earlier (B, N, S) form put S=16 in lanes
-    (padded 8x to the lane tile). Measured at batch 128 x 1M rows
-    (lane_probe, on-chip): 16.7 ms (original (B,N,Q,S) broadcast) ->
-    4.29 ms ((B,N,S) one-pass at C=1) -> 3.68 ms per-column — the lane
-    is now within ~0.1 ms of its masked-top-k floor (3.6 ms), and C=2
-    escalation costs ~0.7 ms instead of 3 ms. The query token budget is
-    ~S*C (was a silent cap of 8) with per-slot overflow surfaced in
-    debug payloads."""
+    (B, N) passes that XLA fuses into one elementwise pass over the
+    (N, S) slot table. The query token budget is ~S*C with per-slot
+    overflow surfaced in debug payloads."""
     n_cols = q_tokens.shape[1]
     slots = doc_tokens.shape[1]
     capacity = n_cols // slots
@@ -60,22 +57,16 @@ def tech_topk(
     q_tokens: jax.Array,
     mask: jax.Array,
     k: int,
-    recall_target: float = 0.95,
 ) -> Tuple[jax.Array, jax.Array]:
-    """Returns (f32 recency keys, positions); non-matches carry -inf.
+    """Returns (f32 recency keys, positions) in (started_sec desc,
+    position asc) order; non-matches carry -inf.
 
     Recency keys are the int32 epoch-seconds BITCAST to f32: IEEE floats
     with the same sign compare exactly like their integer bit patterns, so
     ordering is preserved bit-exactly for non-negative seconds (valid until
-    epoch 2139095041 ~ year 2037) while top_k takes XLA:TPU's fast f32
-    TopK path instead of a full int sort."""
+    epoch 2139095041 ~ year 2037) and the lane shares the f32 top-k path
+    of the other lanes."""
     match = tech_match(doc_tokens, q_tokens)
     recency = jax.lax.bitcast_convert_type(started_sec, jnp.float32)
     keys = jnp.where(match & mask, recency[None, :], -jnp.inf)
-    # approx_max_k: exact TopK costs ~11 ms per lane at 1M docs on-chip.
-    # Recall 0.95 only matters when more than k documents carry the
-    # queried identifier — exact-token matches are sparse by construction,
-    # so the realized recall is ~1.0.
-    from .topk import approx_topk_sorted
-
-    return approx_topk_sorted(keys, k, recall_target=recall_target)
+    return jax.lax.top_k(keys, k)

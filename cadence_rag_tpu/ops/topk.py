@@ -1,13 +1,14 @@
-"""Batched cosine top-k over the HBM-resident embedding matrix.
+"""Batched cosine top-k over the device-resident embedding matrix.
 
 Replaces pgvector's two scan modes (reference: app/retrieve.py:326-389):
 
 - exact scan (`ORDER BY embedding <=> q` with index scans disabled) becomes
-  an MXU matmul + exact ``jax.lax.top_k``;
-- the HNSW ANN path (`hnsw.ef_search`) becomes ``jax.lax.approx_max_k`` —
-  XLA:TPU's PartialReduce aggregate-to-topk, the peak-FLOPs TPU ANN
-  primitive (TPU-KNN, Chern et al. 2022). ``ef_search`` maps onto the
-  recall_target knob (engine/planner.py).
+  a matmul + exact ``jax.lax.top_k``;
+- the HNSW ANN path (`hnsw.ef_search`) becomes ``jax.lax.approx_max_k``,
+  with ``ef_search`` mapped onto its recall_target knob
+  (engine/planner.py). Only a backend with a native approx_max_k lowering
+  trades recall for speed; on the CPU and GPU backends the call lowers to
+  a sort and a slice, so the ANN lane returns the exact top-k.
 
 Embeddings are unit-normalized (the embedding contract truncates to 1024-d
 and L2-normalizes: reference P620_..RUNBOOK.md:703-715), so cosine ≡ dot and
@@ -57,15 +58,7 @@ def dense_scores(
 def masked_topk_exact(
     scores: jax.Array, mask: jax.Array, k: int
 ) -> Tuple[jax.Array, jax.Array]:
-    """Exact top-k of (B, N) scores under a (B, N) validity mask.
-
-    The (B, N) f32 score plane costs nothing to keep at full width:
-    measured on-chip at 1M rows (lane_probe --probe plane, NOTES_DEV
-    2026-08-18) the dense lane runs at ~477 GB/s — the corpus read alone
-    accounts for the whole lane time, i.e. XLA already fuses the plane
-    into the matmul->top-k pipeline and never materializes it at full
-    width. A bf16-narrowed plane measured SLOWER (the convert adds a
-    pass), so no plane-dtype knob exists."""
+    """Exact top-k of (B, N) scores under a (B, N) validity mask."""
     masked = jnp.where(mask, scores, NEG_INF)
     return jax.lax.top_k(masked, k)
 
@@ -89,7 +82,8 @@ def approx_topk_sorted(
 def masked_topk_approx(
     scores: jax.Array, mask: jax.Array, k: int, recall_target: float
 ) -> Tuple[jax.Array, jax.Array]:
-    """ANN top-k via XLA:TPU aggregate-to-topk (lax.approx_max_k)."""
+    """ANN top-k via lax.approx_max_k (exact where the backend has no
+    native lowering)."""
     masked = jnp.where(mask, scores, NEG_INF)
     return approx_topk_sorted(masked, k, recall_target)
 

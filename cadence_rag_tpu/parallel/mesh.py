@@ -2,7 +2,9 @@
 
 Mesh axes: "data" shards the corpus (document rows of the index arrays) —
 the axis that grows with corpus size; "model" shards the in-process
-embedder's weights (Megatron tp). Collectives ride ICI within a pod.
+embedder's weights (Megatron tp). The mesh follows the algorithm alone:
+every device reaches every other (NVLink within a host), so no axis order
+is tied to a physical topology.
 """
 
 from __future__ import annotations

@@ -1,6 +1,6 @@
 """Multi-host lockstep serving: the device-index op-log.
 
-When the mesh spans PROCESSES (multi-host TPU pods; SURVEY.md §2.4 DCN
+When the mesh spans PROCESSES (multi-host gangs; SURVEY.md §2.4 DCN
 scope), every process must enqueue the IDENTICAL XLA program sequence —
 a jit over global sharded arrays launched by one process alone deadlocks
 the gang. The reference never faces this (Postgres is a single server;
@@ -241,8 +241,7 @@ def replicated_array(arr: np.ndarray):
     """Committed fully-replicated global array from host values that are
     IDENTICAL on every process (deterministic host computation, or an
     op-log-mirrored payload). device_put to a cross-process sharding is
-    illegal; make_array_from_callback builds each process's local shards
-    (NOTES_DEV.md multi-host gotcha c)."""
+    illegal; make_array_from_callback builds each process's local shards."""
     import jax
 
     arr = np.ascontiguousarray(arr)

@@ -1,8 +1,8 @@
 """Corpus-sharded retrieval: shard_map over the "data" mesh axis.
 
-When the chunk matrix outgrows one chip's HBM, document rows shard across
-devices; each device scans its shard with the same fused-lane math and the
-per-shard top-k candidates are merged with an all_gather over ICI followed
+When the chunk matrix outgrows one device's memory, document rows shard
+across devices; each device scans its shard with the same fused-lane math
+and the per-shard top-k candidates are merged with an all_gather followed
 by a local re-top-k — O(devices * k) merge traffic instead of moving
 scores (SURVEY.md §2.4). Queries are replicated across "data".
 """
@@ -141,7 +141,7 @@ def sharded_multi_lane(
     axis: str = "data",
 ):
     """All three lanes over a row-sharded corpus: each shard runs the fused
-    lane math locally, per-lane top-k candidates all_gather over ICI and
+    lane math locally, per-lane top-k candidates all_gather across the mesh and
     re-select locally. Returns {"dense"|"lex"|"tech": (scores, positions)}
     with GLOBAL document positions."""
     fn = shard_map(

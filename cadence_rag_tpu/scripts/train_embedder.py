@@ -2,7 +2,7 @@
 
 The reference consumes a frozen external embedding model; this framework
 can adapt its own. Training pairs come from structure that needs no labels
-(VERDICT round-1 item 2 pair-curation recipe):
+(pair-curation recipe):
 
 - **cross-register pairs**: an analysis-artifact chunk (summary register)
   with a transcript chunk of the same call — summaries paraphrase the

@@ -202,8 +202,8 @@ def ingest_transcript_endpoint(req: Request):
 def ingest_transcript_batch_endpoint(req: Request):
     """Batch ingest: a list of transcript requests in one call. The device
     index already inserts in slabs; this gives the HTTP surface the same
-    batching (TPU-native addition — the reference ingests one transcript
-    per request, app/main.py:92)."""
+    batching (an addition — the reference ingests one transcript per
+    request, app/main.py:92)."""
     body = req.body
     if not isinstance(body, list) or not body:
         raise ApiError(422, "expected a non-empty JSON array of "
@@ -422,6 +422,9 @@ def startup() -> None:
         # exceed one process's chips (SURVEY.md §2.4 DCN scope)
         import jax
 
+        # gang members that share a host are each started with
+        # CUDA_VISIBLE_DEVICES naming their own cards, and on GPUs with
+        # --xla_gpu_shard_autotuning=false (docs/OPERATIONS.md)
         jax.distributed.initialize(
             coordinator_address=settings.dist_coordinator.strip(),
             num_processes=int(settings.dist_num_processes) or None,
@@ -468,6 +471,13 @@ def startup() -> None:
                 logger.info("api.follower process=%s", jax.process_index())
                 oplog.follower_main(get_index(), coord_host, oplog_port)
                 raise SystemExit(0)  # leader shut down; no HTTP on followers
+    import jax
+
+    device = jax.devices()[0]
+    logger.info(
+        "api.startup backend=%s device_kind=%s devices=%s",
+        jax.default_backend(), device.device_kind, jax.device_count(),
+    )
     if int(settings.profiler_port) > 0:
         import jax.profiler
 

@@ -4,7 +4,7 @@ The reference's dense lane depends on an external GPU service
 (Triton + FastAPI gateway: POST /embed {"texts", "model"} ->
 {"embeddings", "model"}; reference: P620_..RUNBOOK.md:489-497). This module
 serves the SAME wire contract from this framework's own providers (neural
-transformer on the TPU, or the deterministic hash embedder), so a reference
+transformer on the device, or the deterministic hash embedder), so a reference
 deployment can point its EMBEDDINGS_BASE_URL here — or two instances of
 this framework can embed for each other.
 

@@ -24,7 +24,15 @@ class MetricsRegistry:
         )
         self._counts: Dict[str, int] = defaultdict(int)
         self._errors: Dict[str, int] = defaultdict(int)
+        self._batches = {"count": 0, "requests": 0, "max_size": 0}
         self._started = time.time()
+
+    def observe_batch(self, size: int) -> None:
+        """One micro-batcher dispatch of ``size`` /retrieve requests."""
+        with self._lock:
+            self._batches["count"] += 1
+            self._batches["requests"] += size
+            self._batches["max_size"] = max(self._batches["max_size"], size)
 
     def observe(self, family: str, seconds: float, error: bool = False) -> None:
         with self._lock:
@@ -40,6 +48,7 @@ class MetricsRegistry:
             out: Dict[str, Any] = {
                 "uptime_s": round(time.time() - self._started, 1),
                 "endpoints": {},
+                "retrieve_batches": dict(self._batches),
             }
             for family, count in self._counts.items():
                 lats = np.asarray(self._latencies[family], dtype=np.float64)
@@ -62,6 +71,7 @@ class MetricsRegistry:
             self._latencies.clear()
             self._counts.clear()
             self._errors.clear()
+            self._batches = {"count": 0, "requests": 0, "max_size": 0}
             self._started = time.time()
 
 

@@ -1,13 +1,10 @@
 """In-process operational event log (bounded ring buffer).
 
-The round-4 soak saw a 51 s worst batch that no isolated probe could
-reproduce (growth copy ~6 s, AOT lowering 0.4 s, compile RPC does not
-block dispatch, scatter convoys ~10 ms/op — evals/growth_probe.py,
-evals/prewarm_probe.py). Serving stalls come from the INTERACTION of
-concurrent operational events, so the index/prewarm/vocab paths record
-what they do and how long it took; harnesses (evals/soak.py) drain the
-ring next to their latency samples and the worst batch can be aligned
-with whatever overlapped it.
+Serving stalls that no isolated measurement reproduces come from the
+INTERACTION of concurrent operational events, so the index/prewarm/vocab
+paths record what they do and how long it took; harnesses
+(evals/soak.py) drain the ring next to their latency samples and the
+worst batch can be aligned with whatever overlapped it.
 
 Zero-cost when disabled (one bool check); never used for control flow.
 SURVEY.md §5 tracing: the reference logs event-style messages

@@ -1,7 +1,7 @@
 """Datetime helpers: ISO-8601 persistence, epoch-second device keys.
 
-Device filter/recency keys are int32 epoch seconds (TPU-friendly; int64 is
-emulated on TPU). Host metadata keeps full-precision ISO timestamps.
+Device filter/recency keys are int32 epoch seconds (JAX runs in 32-bit
+mode by default). Host metadata keeps full-precision ISO timestamps.
 """
 
 from __future__ import annotations

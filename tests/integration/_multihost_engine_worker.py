@@ -79,7 +79,7 @@ def main() -> None:
     index.chunks.compact()
     out["compacted_count"] = int(index.chunks.count)
     out["post_compact"] = ids("kafka timeout incident")
-    # multi-host IVF (round 4, VERDICT r3 weak #5): gang k-means build
+    # multi-host IVF: gang k-means build
     # mirrored as ONE 'build_ivf' op, the probed dense dispatch mirrored
     # per query ('query_ivf'), overflow appends mirrored ('ivf_overflow')
     state = index.chunks.build_ivf(n_clusters=8, seed=7)

@@ -250,7 +250,7 @@ class TestBatchRetrieve:
                                                      monkeypatch):
         """A provider failing EVERY call must not cost B serial retries:
         after 3 consecutive individual failures the rest of the batch
-        degrades immediately (VERDICT r2 weak #7)."""
+        degrades immediately."""
         import cadence_rag_tpu.engine.retrieve as eng
         from cadence_rag_tpu.embed import EmbeddingError
 

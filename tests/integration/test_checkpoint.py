@@ -73,8 +73,8 @@ class TestCheckpoint:
 
     def test_bf16_storage_halves_emb_bytes(self, populated, tmp_path):
         """Format v2 stores embeddings in the index storage dtype (bf16 as
-        uint16 bits) — the VERDICT checkpoint-size item: ~9 GB f32 at 1M
-        docs becomes ~4.5 GB."""
+        uint16 bits): the embedding half of a 1M-doc checkpoint drops from
+        ~4 GB as f32 to ~2 GB."""
         save_index(str(tmp_path / "snap"))
         import numpy as _np
 

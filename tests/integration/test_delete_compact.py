@@ -1,5 +1,5 @@
-"""Delete path + compaction (VERDICT round-1 item 10: tombstones, periodic
-rewrite, filters still correct afterwards). No reference counterpart —
+"""Delete path + compaction (tombstones, periodic rewrite, filters still
+correct afterwards). No reference counterpart —
 the reference has no delete either; this is new framework surface."""
 
 import numpy as np

@@ -1,4 +1,4 @@
-"""Device-side RRF (VERDICT r3 weak #2): kernel parity vs the host merge
+"""Device-side RRF: kernel parity vs the host merge
 oracle, and end-to-end response parity with DEVICE_RRF on vs off."""
 
 import jax.numpy as jnp

@@ -101,7 +101,7 @@ class TestRetrieveEvidencePack:
 
     def test_many_query_identifiers_still_match(self, tmp_store):
         """The old fixed-Q layout silently truncated queries at 8
-        identifiers (VERDICT r2 weak #4); the slot-addressed structure
+        identifiers; the slot-addressed structure
         matches well beyond that, and any residual overflow is surfaced
         in notes.retrieval.tech_tokens_dropped instead of silent."""
         from cadence_rag_tpu.ingest.ingest import ingest_transcript

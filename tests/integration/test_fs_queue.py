@@ -141,7 +141,7 @@ class TestScannerWorker:
 
     def test_pdf_docx_bundle_end_to_end(self, ingest_root):
         """A dropped bundle carrying .pdf and .docx analysis files ingests
-        without optional libraries (VERDICT adapter-parity item; reference
+        without optional libraries (adapter parity; the reference
         extracts these via pypdf/python-docx, ingest_adapters.py:131-293)."""
         from tests.unit.test_docformats import make_docx, make_pdf
 

@@ -1,7 +1,7 @@
 """INDEX_EMBEDDING_DTYPE=int8: quantized embedding storage.
 
-Halves the dense lane's HBM traffic and checkpoint bytes vs bf16 (the
-dense scan is HBM-bound — NOTES_DEV.md); rows are unit vectors stored as
+Halves the dense lane's memory traffic and checkpoint bytes vs bf16 (the
+dense scan streams the whole matrix per batch); rows are unit vectors stored as
 round(x*127) int8 and widened in-register at score time
 (ops/topk.dense_scores). Quantization noise must not materially change
 dense rankings, and every write path (insert, backfill scatter,

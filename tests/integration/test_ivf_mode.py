@@ -233,8 +233,7 @@ class TestMidFlightInvalidation:
 def ivf_corpus_int8(tmp_store, monkeypatch):
     """Same corpus as ivf_corpus but with int8 embedding storage —
     the IVF probed path must work under quantized rows (k-means runs on
-    the DEQUANTIZED snapshot, probed scores rescale by 1/127;
-    NOTES_DEV.md round-3 int8 notes / VERDICT r4 weak #5)."""
+    the DEQUANTIZED snapshot, probed scores rescale by 1/127)."""
     from cadence_rag_tpu.ingest.ingest import ingest_analysis
     from cadence_rag_tpu.schemas import AnalysisArtifactIn
 

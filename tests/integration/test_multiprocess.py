@@ -1,7 +1,7 @@
 """TRUE multi-process distributed validation: two OS processes join a
 jax.distributed coordinator, the device mesh spans both, and the
 corpus-sharded lanes' collectives cross the process boundary (Gloo on
-CPU — the same machinery DIST_COORDINATOR uses on multi-host TPU).
+CPU — the same machinery DIST_COORDINATOR uses across GPU hosts).
 
 The single-process 8-device mesh tests (test_parallel.py,
 test_sharded_serving.py) cannot catch cross-process issues; this one

@@ -1,12 +1,6 @@
-"""Trained embedder as the dense provider (VERDICT round-1 item 2).
-
-On-chip reference numbers (recorded from the artifact training run,
-2026-08-16, TPU v5e):
-- paraphrase gate (held-out register-paraphrase queries, dense-only):
-  tuned MRR 0.874 (d128/2L) / 0.796 (d256/4L) vs hash-stub 0.547;
-- full fixture gate with the committed artifact: MRR 0.917,
-  recall@20 0.972, nDCG@10 0.888 — all above the reference floors
-  (0.60 / 0.80 / 0.70).
+"""Trained embedder as the dense provider: the committed artifact must
+beat the hash stub on paraphrase queries and hold the fixture gate's
+reference floors (MRR 0.60 / recall@20 0.80 / nDCG@10 0.70).
 """
 
 from pathlib import Path

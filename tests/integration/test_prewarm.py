@@ -2,9 +2,8 @@
 threshold, the NEXT capacity's fused program compiles in the background,
 and the first post-growth query hits the warm jit cache (no new compile).
 
-Measured motivation (NOTES_DEV.md round-2 mixed read/write bench): the
-mid-serving capacity-doubling recompile drove query p99 from 119 ms to
-17.4 s under an unthrottled writer.
+Motivation: without it the mid-serving capacity-doubling recompile lands
+in the query tail under a steady writer.
 """
 
 import numpy as np
@@ -81,9 +80,9 @@ class TestGrowthPrewarm:
         self, prewarm_env, monkeypatch
     ):
         """The doubled-capacity compile is skipped (not attempted and
-        failed) when it would blow the HBM budget — at 2M->4M on a 16GB
-        chip the AOT compile OOMs and its lowering steals the serving
-        core (NOTES_DEV.md)."""
+        failed) when it would blow the device-memory budget — the AOT
+        compile would run out of memory and its lowering would compete
+        with serving."""
         from cadence_rag_tpu.engine.retrieve import retrieve_evidence_batch
 
         index = get_index()
@@ -101,8 +100,8 @@ class TestGrowthPrewarm:
         assert index.prewarmer._compiled
 
     def test_fractional_growth_when_doubling_cannot_fit(self, prewarm_env):
-        """VERDICT r2 item 4: at 1M bf16 rows on a 16 GB chip a doubling
-        can never fit (old+new coexist), but a fractional step does —
+        """Near the top of device memory a doubling cannot fit (old+new
+        coexist), but a fractional step does —
         growth (and its prewarm) must degrade instead of standing down."""
         import types
 

@@ -1,5 +1,5 @@
 """Reranker distillation: lexical teacher -> neural cross-encoder
-(VERDICT round-1 item 9; BASELINE.md config 5 Phase-4 lane)."""
+(BASELINE.md config 5 Phase-4 lane)."""
 
 import numpy as np
 import pytest

@@ -1,5 +1,5 @@
 """Rerank gate (evals/rerank_gate.py): the TWO-REGISTER cross-encoder
-(frozen lexical prior + trained residual, VERDICT r4 weak #3) must beat
+(frozen lexical prior + trained residual) must beat
 the lexical rescorer on paraphrase candidates AND hold the
 lexically-saturated fixture gate's floors — both registers, one model.
 
@@ -32,12 +32,12 @@ class TestRerankGate:
         assert outcome["failures"] == [], outcome
         assert outcome["neural_mrr"] > outcome["lexical_mrr"] + 0.10
         assert outcome["shuffled_mrr"] < outcome["neural_mrr"]
-        # end-to-end through /retrieve with RERANK_ENABLED=1 (VERDICT r3
-        # weak #3): the tuned cross-encoder must not lose to the lexical
-        # provider on candidates produced by the REAL fused retrieval
+        # end-to-end through /retrieve with RERANK_ENABLED=1: the tuned
+        # cross-encoder must not lose to the lexical provider on
+        # candidates produced by the REAL fused retrieval
         assert outcome["e2e_neural_mrr"] >= outcome["e2e_lexical_mrr"]
-        # the fixture register (VERDICT r4 weak #3): reordering the
-        # fused top-k must not break exact-token ranking
+        # the fixture register: reordering the fused top-k must not
+        # break exact-token ranking
         fx = outcome["fixture_metrics"]
         assert fx["mrr"] >= 0.60 and fx["recall@20"] >= 0.80
         assert fx["ndcg@10"] >= 0.70

@@ -42,9 +42,8 @@ class TestServeAll:
         inbox = tmp_path / "ingest" / "inbox"
         inbox.mkdir(parents=True)
         env = dict(os.environ)
-        env.pop("JAX_PLATFORMS", None)
         env.update({
-            "CADENCE_FORCE_PLATFORM": "cpu",
+            "JAX_PLATFORMS": "cpu",
             "XLA_FLAGS": "--xla_force_host_platform_device_count=2",
             "EMBEDDINGS_PROVIDER": "stub",
             "EMBEDDINGS_BASE_URL": "",

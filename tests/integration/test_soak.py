@@ -1,7 +1,7 @@
 """Soak harness machinery (evals/soak.py) at CPU scale: a seconds-long
 run must drive queries + throttled writer + deletes + compaction + the
-vocab auto-rebuild together and produce the windowed report the on-chip
-10-minute soak records into NOTES_DEV (VERDICT r3 item 8)."""
+vocab auto-rebuild together and produce the windowed report the
+accelerator-scale soak records."""
 
 from cadence_rag_tpu.evals.soak import run_soak
 

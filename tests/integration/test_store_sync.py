@@ -1,7 +1,7 @@
 """Store -> device-index live sync (ingest/sync.py).
 
-The round-2 VERDICT's top gap: a standalone worker's store writes were
-invisible to a serving process until restart. These tests drive the
+The gap this closes: a standalone worker's store writes were invisible
+to a serving process until restart. These tests drive the
 mutation log + StoreSyncer in one process by flipping store-only mode
 (exactly what the worker daemon does); the true cross-process topology is
 covered by test_worker_api_coherence.py.

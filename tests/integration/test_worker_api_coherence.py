@@ -1,4 +1,4 @@
-"""Cross-process worker/API coherence (the round-2 VERDICT's top gap).
+"""Cross-process worker/API coherence.
 
 The reference's 3-process topology (api + scanner + worker containers
 sharing Postgres, reference docker-compose.yml:22-102) guarantees a

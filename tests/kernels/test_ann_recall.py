@@ -1,5 +1,5 @@
-"""ANN recall gate at CPU-test scale (the 100k TPU run is exercised by
-the CLI: python -m cadence_rag_tpu.evals.ann_recall_gate)."""
+"""ANN recall gate at CPU-test scale (the 100k run is the CLI:
+python -m cadence_rag_tpu.evals.ann_recall_gate)."""
 
 from cadence_rag_tpu.evals.ann_recall_gate import measure_recall
 
@@ -16,11 +16,10 @@ class TestAnnRecall:
         assert high["recall_at_k"] >= low["recall_at_k"] - 0.05
 
     def test_filtered_recall_contiguous_mask(self):
-        """The filtered-ANN guarantee (VERDICT r3 missing #2): recall must
-        hold under a selective CONTIGUOUS mask — the worst case for the
-        windowed PartialReduce (date/call filters select insertion-
-        contiguous rows). On-chip at 1M: >= 0.96 at every density
-        (NOTES_DEV.md table); this is the CPU regression tripwire."""
+        """The filtered-ANN guarantee: recall must hold under a selective
+        CONTIGUOUS mask — the worst case for a windowed partial reduce
+        (date/call filters select insertion-contiguous rows); this is
+        the CPU regression tripwire."""
         for density in (0.05, 0.01):
             result = measure_recall(
                 n=8192, n_queries=16, k=10,

@@ -1,6 +1,6 @@
 """Realistic-geometry gate harness at CPU-test scale.
 
-The 1M on-chip run is the CLI (python -m cadence_rag_tpu.evals.geometry_gate);
+The 1M run is the CLI (python -m cadence_rag_tpu.evals.geometry_gate);
 here we exercise run_gates() end-to-end on a small clustered corpus and
 check the eps-recall semantics that make the int8 gate honest: id-recall
 can dip on near-tie-saturated geometry while every retrieved doc stays

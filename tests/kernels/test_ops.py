@@ -1,6 +1,6 @@
 """Kernel-vs-oracle parity tests (SURVEY.md §4: "kernel-vs-reference
 numerical parity tests" — the reference has no counterpart; this is new
-TPU-build coverage)."""
+coverage)."""
 
 import jax.numpy as jnp
 import numpy as np

@@ -34,9 +34,7 @@ class TestChooseDenseMode:
 
 class TestRecallTargetMap:
     def test_monotone_in_ef_search(self):
-        # ef below the anchor is CLAMPED to it: sub-anchor targets are
-        # latency-dead and recall-identical on TPU (planner docstring;
-        # evals/filtered_recall_sweep 1M speed table, 2026-08-19)
+        # ef below the anchor is CLAMPED to it (planner docstring)
         lo = recall_target_for_ef_search(20)
         mid = recall_target_for_ef_search(80)
         hi = recall_target_for_ef_search(320)
@@ -50,42 +48,3 @@ class TestRecallTargetMap:
     def test_bounded(self):
         assert 0.5 <= recall_target_for_ef_search(1) <= 0.999
         assert 0.5 <= recall_target_for_ef_search(100000) <= 0.999
-
-
-class TestCalibratedRecallMap:
-    """The ef->recall map is measured, not invented (VERDICT r3 weak #4):
-    engine/planner.MEASURED_RECALL_AT_TARGET holds the on-chip calibration
-    (evals/filtered_recall_sweep.py, NOTES_DEV.md table)."""
-
-    def test_expected_recall_monotone_in_ef(self):
-        from cadence_rag_tpu.engine.planner import expected_recall_for_ef_search
-
-        ladder = [20, 40, 80, 160, 320]
-        recalls = [expected_recall_for_ef_search(ef) for ef in ladder]
-        assert all(b >= a for a, b in zip(recalls, recalls[1:])), recalls
-
-    def test_expected_recall_meets_target_at_every_ladder_point(self):
-        from cadence_rag_tpu.engine.planner import (
-            expected_recall_for_ef_search,
-            recall_target_for_ef_search,
-        )
-
-        for ef in (20, 40, 80, 160, 320):
-            assert (
-                expected_recall_for_ef_search(ef)
-                >= recall_target_for_ef_search(ef)
-            ), ef
-
-    def test_measured_table_is_monotone(self):
-        from cadence_rag_tpu.engine.planner import MEASURED_RECALL_AT_TARGET
-
-        targets = [t for t, _ in MEASURED_RECALL_AT_TARGET]
-        recalls = [r for _, r in MEASURED_RECALL_AT_TARGET]
-        assert targets == sorted(targets)
-        assert all(b >= a for a, b in zip(recalls, recalls[1:]))
-
-    def test_interpolation_bounds(self):
-        from cadence_rag_tpu.engine.planner import expected_recall_for_ef_search
-
-        assert expected_recall_for_ef_search(1) >= 0.96
-        assert expected_recall_for_ef_search(100000) <= 1.0
